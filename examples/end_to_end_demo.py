@@ -10,7 +10,7 @@ the reference toolchain would (README.md of the reference, usage §1-§4):
 Run:  python examples/end_to_end_demo.py [workdir]
 
 Everything is host-synthetic and small, so this completes in ~a minute on
-CPU jax (JAX_PLATFORMS=cpu) and faster on a TPU chip.
+CPU jax (JAX_PLATFORMS=cpu) and faster on a GPU.
 """
 
 from __future__ import annotations

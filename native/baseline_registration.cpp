@@ -543,7 +543,7 @@ int main(int argc, char** argv) {
   int successes = 0;
   auto t_all0 = std::chrono::steady_clock::now();
   for (int pair = 0; pair < n_pairs; ++pair) {
-    // perturb the source so no two pairs are identical (like the TPU bench)
+    // perturb the source so no two pairs are identical
     std::vector<P3> src_pts = base;
     float off = float(pair + 1) * 1e-4f;
     for (P3& p : src_pts) p.x += off;

@@ -2,7 +2,7 @@
 // multi-layer BEV writeback (bin + 24 PNGs per cloud), exposed through a
 // C ABI for ctypes.  The reference's runtime is C++ (OpenCV imwrite /
 // ofstream, /root/reference/BatchMultiBevGen.cpp:294-320); this is the
-// TPU-framework equivalent: the device produces batched rasters, and this
+// Device-framework equivalent: the device produces batched rasters, and this
 // library drains them to disk without holding the GIL.
 //
 // Build: g++ -O2 -shared -fPIC -o libpctpu_io.so pctpu_io.cpp -lz

@@ -8,7 +8,7 @@
 // mixed f32/f64 arithmetic with numpy scalar casts; this file gets the same
 // semantics natively (float locals, double promotions exactly where the
 // reference promotes).  Byte agreement between the two independent
-// transcriptions and the vectorized TPU ops is the strongest parity
+// transcriptions and the vectorized device ops is the strongest parity
 // evidence available without PCL on this machine.
 //
 // Reference semantics transcribed (never copied):

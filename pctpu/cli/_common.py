@@ -1,12 +1,17 @@
 """Shared argv handling for the CLI entry points: positional args like the
-reference binaries, plus optional --key=value extensions."""
+reference binaries, plus optional --key=value extensions.  Every entry point
+starts here, so this is also where the persistent compile cache is turned
+on (``pctpu.runtime.platform.enable_compile_cache``)."""
 
 from __future__ import annotations
 
 import sys
 
+from pctpu.runtime.platform import enable_compile_cache
+
 
 def split_args(argv: list[str]) -> tuple[list[str], dict[str, str]]:
+    enable_compile_cache()
     pos: list[str] = []
     kw: dict[str, str] = {}
     for a in argv:

@@ -27,8 +27,8 @@ Extensions: --resume  --batch-size=N  --no-pngs  --devices=N (data-parallel mesh
             --profile=DIR (capture a jax.profiler trace of the run for
             TensorBoard / xprof timeline inspection)
             --compat=bitexact|tolerance (ground-grid accumulation: bit-exact
-            C++ rounding sequence (default) vs the MXU segment-sum throughput
-            mode, <1 px BEV divergence — docs/PERFORMANCE.md)
+            C++ rounding sequence (default) vs a one-hot matmul segment-sum,
+            <1 px BEV divergence — README divergence D1)
 """
 
 

@@ -14,7 +14,7 @@ def main(argv=None) -> int:
         usage_exit(
             "Usage: batch_top_part_registration <match_result.txt> <point_cloud_dir>\n"
             "Extensions: --pair-batch=N (vmapped pair batching; default 16\n"
-            "            on TPU, 1 elsewhere)  --devices=N\n"
+            "            on a GPU, 1 on the CPU)  --devices=N\n"
             "            (data-parallel mesh)  --capacity=N  --flat-cap=N\n"
             "            --report=PATH  --resume (skip pairs already in\n"
             "            <report>.progress)  --num-processes=N --process-id=K\n"

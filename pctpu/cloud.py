@@ -4,7 +4,7 @@ The reference stores clouds as arrays of a packed ``pcl::PointXYZIRCT`` struct
 (x, y, z, intensity, row, col, t, label — see
 /root/reference/BatchMultiBevGen.h:44-66).  An array-of-structs is the wrong
 layout for a vector machine; here a cloud is a structure of arrays so every
-field maps onto contiguous TPU lanes, and the whole cloud is a JAX pytree that
+field is one contiguous device array, and the whole cloud is a JAX pytree that
 can be jitted, vmapped and sharded directly.
 
 Label conventions preserved from the reference:

@@ -14,7 +14,7 @@ in TopPartRegistration.cpp:391-455 is commented out):
     (eigvec x 200 from the centroid, colored blue/green/red), 100 m axes,
     white background (/root/reference/main.cpp:100-135).
 
-A VTK window cannot open on a headless TPU pod, so pctpu writes the same
+A VTK window cannot open on a headless accelerator host, so pctpu writes the same
 scene to ONE self-contained .html file: point/line data embedded as
 base64 float32, rendered by an inline vanilla-WebGL orbit viewer (no
 network, no external JS).  Controls mirror PCLVisualizer's: left-drag

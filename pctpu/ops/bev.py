@@ -1,6 +1,6 @@
 """BEV rasterization: multi-layer occupancy, uint8 height, float max-height.
 
-TPU design: per-point loops with in-place image writes become single
+Design: per-point loops with in-place image writes become single
 scatter-max ops over flattened cell indices — commutative, order-independent,
 and batchable with vmap.  Grid indexing uses C ``round()`` semantics
 (half away from zero) to stay pixel-exact with the reference.
@@ -102,8 +102,7 @@ def fused_multi_single_bev(
 
     Semantics are exactly ``(multi_bev(...), single_bev(...))`` (see the
     per-op docstrings / /root/reference/BatchMultiBevGen.cpp:261-373); the
-    implementation is TPU-shaped: a v5e scatter costs ~10 ns/update while a
-    sort costs ~2 ns/element, so the two scatter-max rasters become
+    two scatter-max rasters become sorted-run reductions:
 
       1. one key sort of ``(cell << 9) | (height << 1) | sentinel`` with a
          per-point layer-occupancy bit as payload — one sentinel element per
@@ -160,10 +159,9 @@ def fused_multi_single_bev(
     # pass 2: segmented OR scan over same-cell runs, as an unrolled
     # Hillis-Steele log-step loop.  Equal cells at distance `shift` imply the
     # whole span between them is one run (keys are sorted), so the equality
-    # guard is a correct segment boundary.  Measured on v5e this costs
-    # ~0.02 ms/cloud where `lax.associative_scan` with a (key, value) tuple
-    # carrier costs ~0.41 ms — the tuple scan materializes its interleaved
-    # slices while these shifted ORs fuse into a handful of elementwise passes.
+    # guard is a correct segment boundary.  Unlike `lax.associative_scan`
+    # with a (key, value) tuple carrier, which materializes its interleaved
+    # slices, these shifted ORs fuse into a handful of elementwise passes.
     cellof = sk >> 9
     orbits = sb
     total = sk.shape[0]

@@ -1,9 +1,8 @@
 """Ground marking: slope test per column + grid-average heights + rooftop veto.
 
 Reproduces ``markGroundPoints`` (/root/reference/BatchMultiBevGen.cpp:119-252)
-bit-for-bit as three fused, fully-vectorized passes — and, crucially for TPU,
-with almost no dynamic gathers or scatters (measured at ~1 ms per 133k-point
-pass on v5e, they dominate everything else):
+bit-for-bit as three fused, fully-vectorized passes with almost no dynamic
+gathers or scatters:
 
 1. **Slope sweep**: the reference compares each swept cell to the cell one
    ring up, falling back to col+2, col-2, then row-2 when the upper reading
@@ -19,8 +18,9 @@ pass on v5e, they dominate everything else):
    cell is -1 if its own pair is invalid, else 1 if its own test or the test
    of the cell below passed; the row above the sweep is written only by the
    sweep's top row.
-2. **Grid averages**: one fused scatter-add of (z, 1) pairs over the 75×50
-   2-metre grid (:187-210) with the 0.01 count epsilon (:135-136).
+2. **Grid averages**: per-sector z sums folded in point order and exact
+   counts over the 75×50 2-metre grid (:187-210), with the 0.01 count
+   epsilon (:135-136).
 3. **Rooftop veto + labels**: the reference un-marks any cell > 0.30 m above
    the average of *any* valid 4-neighbor sector (:227-241) — equivalently,
    above the *minimum* valid neighbor average, which is a cheap (75, 50)
@@ -34,12 +34,15 @@ reference (zero coords pass the slope test, land in grid sector (37, 25)).
 
 from __future__ import annotations
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 
 from pctpu.cloud import Cloud
 from pctpu.config import GroundConfig, SensorParams
+from pctpu.ops.segment import ordered_segment_sum
 
 
 def _strict_gt_f32_threshold(margin: float) -> np.float32:
@@ -64,11 +67,11 @@ def _strict_gt_f32_threshold(margin: float) -> np.float32:
 def _grid_table_lookup(
     table2d: jnp.ndarray, row: jnp.ndarray, col: jnp.ndarray
 ) -> jnp.ndarray:
-    """table2d[row, col] via *factorized* one-hot contractions on the MXU.
+    """table2d[row, col] via *factorized* one-hot contractions (two matmuls).
 
     A flat one-hot against an (R·C)-entry table costs P·R·C elementwise
     comparisons to build; factorizing into row/col one-hots costs P·(R+C) —
-    30× fewer for the 75×50 ground grid — followed by two small MXU
+    30× fewer for the 75×50 ground grid — followed by two small
     contractions: ``(P,R) @ (R,C) → (P,C)``, then a masked row-sum against
     the col one-hot.  Exact: each one-hot row selects a single f32 value
     (Precision.HIGHEST keeps the f32 copy path; no accumulation happens as
@@ -110,25 +113,43 @@ def _belonging_grid(x: jnp.ndarray, y: jnp.ndarray, cfg: GroundConfig):
     return row, col
 
 
+@functools.lru_cache(maxsize=None)
+def _ones_fold_table(n_max: int, eps: float) -> np.ndarray:
+    """f32 values of ((eps + 1) + 1) + … after k additions, k = 0..n_max
+    (``np.cumsum`` accumulates sequentially in the array's dtype)."""
+    steps = np.ones(n_max + 1, np.float32)
+    steps[0] = np.float32(eps)
+    return np.cumsum(steps, dtype=np.float32)
+
+
 def _grid_sums_bitexact(
     sector: jnp.ndarray, z: jnp.ndarray, ground: jnp.ndarray, cfg: GroundConfig
 ) -> jnp.ndarray:
-    """Sequential-rounding (z, count) sector sums via one fused scatter-add.
+    """Sequential-rounding (z, count) sector sums.
 
     Bit-exact vs the C++ point-order accumulation
-    (/root/reference/BatchMultiBevGen.cpp:187-210): TPU scatter-add applies
-    updates in index order, reproducing the per-sector f32 rounding sequence,
-    and the accumulator starts AT the 0.01 epsilon (cv::Mat init, :135-136) —
-    (((0.01+1)+1)+…) rounds differently from exact_count + 0.01 once counts
-    reach 32.
+    (the reference's BatchMultiBevGen.cpp:187-210):
+
+    * z folds in point order per sector (``ops/segment.py``) after a
+      stable sort by sector.  Points with z == 0 (among them every empty
+      grid cell, which all land in one sector) leave a sum that never holds
+      -0.0 unchanged, so they are skipped and that sector's run stays
+      short;
+    * the count accumulator starts AT the 0.01 epsilon (cv::Mat init,
+      :135-136) and adds 1.0 per ground point — the same addend every step,
+      so its value depends on the exact integer count alone and is read
+      from the table of sequential folds.  (((0.01+1)+1)+…) rounds
+      differently from exact_count + 0.01 once counts reach 32.
     """
     nsec = cfg.grid_rows * cfg.grid_cols
-    gmask = ground.astype(jnp.float32)
-    pairs = jnp.stack([jnp.where(ground, z, 0.0), gmask], axis=1)
-    init = jnp.zeros((nsec, 2), jnp.float32).at[:, 1].set(
-        jnp.float32(cfg.count_epsilon)
+    fold_ids, z_s = jax.lax.sort(
+        [jnp.where(ground & (z != 0.0), sector, nsec), z], num_keys=1,
+        is_stable=True,
     )
-    return init.at[sector].add(pairs)
+    zsum = ordered_segment_sum(z_s[:, None], fold_ids, nsec)[:, 0]
+    n = jnp.zeros((nsec + 1,), jnp.int32).at[jnp.where(ground, sector, nsec)].add(1)
+    table = jnp.asarray(_ones_fold_table(z.shape[0], cfg.count_epsilon))
+    return jnp.stack([zsum, table[n[:nsec]]], axis=1)
 
 
 def _grid_sums_tolerance(
@@ -138,15 +159,15 @@ def _grid_sums_tolerance(
     ground: jnp.ndarray,
     cfg: GroundConfig,
 ) -> jnp.ndarray:
-    """MXU segment-sum of the (z, count) sector accumulators.
+    """Matmul segment-sum of the (z, count) sector accumulators.
 
     Factorized one-hot contraction: building (P, R) + (P, C) one-hots costs
     P·(R+C) comparisons (30× less than a flat (P, R·C) one-hot), then ONE
-    dot_general ``(2R, P) @ (P, C) → (2R, C)`` puts all the accumulation on
-    the MXU.  Non-ground points contribute exact zeros to both channels, so
+    dot_general ``(2R, P) @ (P, C) → (2R, C)`` puts all the accumulation in
+    one matmul.  Non-ground points contribute exact zeros to both channels, so
     no masking of the one-hots is needed.
 
-    Divergence vs the C++: f32 sums accumulate in the MXU's tree order
+    Divergence vs the C++: f32 sums accumulate in the matmul's tree order
     instead of point order, and the count epsilon is added once at the end
     instead of seeding the accumulator — both ~1e-5-relative effects on the
     sector *averages*, which only feed the >0.30 m rooftop-veto threshold
@@ -185,10 +206,10 @@ def mark_ground(
     with the reference encoding {-1 invalid, 0 no, 1 ground}.
 
     ``compat`` selects the sector-average accumulation: ``"bitexact"``
-    (default) reproduces the C++ f32 rounding sequence via a scatter-add;
-    ``"tolerance"`` uses an MXU segment-sum (~1e-5-relative average
-    divergence, within the BASELINE.json:5 acceptance window) — the measured
-    throughput mode (docs/PERFORMANCE.md).
+    (default) reproduces the C++ f32 rounding sequence with an in-order
+    fold (``ops/segment.py``); ``"tolerance"`` uses a one-hot matmul
+    segment-sum (~1e-5-relative average divergence, within the
+    BASELINE.json:5 acceptance window).
     """
     if compat not in ("bitexact", "tolerance"):
         raise ValueError(f"compat must be 'bitexact' or 'tolerance', got {compat!r}")

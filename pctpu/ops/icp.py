@@ -1,4 +1,4 @@
-"""Iterative closest point on TPU: fixed-shape lax.while_loop with masked
+"""Iterative closest point: fixed-shape lax.while_loop with masked
 correspondences, PCL-compatible estimation and convergence semantics.
 
 Reproduces pcl::IterativeClosestPoint / IterativeClosestPointWithNormals as
@@ -20,11 +20,12 @@ configured by the reference
   * fitness = mean squared 1-NN distance of all transformed source points
     (pcl::Registration::getFitnessScore with default max_range).
 
-TPU design: the loop is a ``lax.while_loop`` over fixed-size padded arrays;
-the NN search is the blocked matmul from pctpu.ops.knn; the per-iteration
-solve is a 3×3 SVD / 6×6 inverse — all static shapes, so one compilation
-serves every pair, and pairs can be vmapped (the two yaw guesses of the
-coarse stage run as one batched program).
+Design: the loop is a ``lax.while_loop`` over fixed-size padded arrays; the
+NN search is the platform's choice (``pctpu.runtime.platform``): the
+bbox-pruned Pallas kernel on a GPU, the blocked matmul from pctpu.ops.knn on
+the CPU; the per-iteration solve is a 3×3 SVD / 6×6 inverse — all static
+shapes, so one compilation serves every pair, and pairs can be vmapped (the
+two yaw guesses of the coarse stage run as one batched program).
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ from pctpu.config import IcpConfig
 from pctpu.ops.knn import nn_1
 from pctpu.ops.pallas_knn import pallas_nn_1_pruned, spatial_sort_payload
 from pctpu.ops.transform import transform_xyz
+from pctpu.runtime.platform import platform_choice
 
 
 @jax.tree_util.register_dataclass
@@ -123,12 +125,10 @@ def icp(
     avoids NaN-poisoning PCL exhibits on isolated points).
 
     ``nn_impl`` selects the correspondence search: "xla" (blocked matmul
-    argmin), "pruned" (the bbox-pruned Pallas kernel over spatially sorted
-    clouds — ~4x faster per pass at 49k points on v5e, exact), "sharded"
-    (target cloud split over ``mesh``'s 'points' axis, all_gather reduce —
-    the §5.7 point-axis scaling path), or "auto" (pruned on TPU, xla
-    elsewhere).  "pruned_interpret" runs the Pallas kernel in interpreter
-    mode for CPU testing.
+    argmin), "pruned" (the bbox-pruned Pallas GPU kernel over spatially
+    sorted clouds, exact), "sharded" (target cloud split over ``mesh``'s
+    'points' axis, all_gather reduce — the §5.7 point-axis scaling path), or
+    "auto" (the platform's choice, ``pctpu.runtime.platform``).
 
     All matrix products trace under full-f32 precision: the platform default
     (bf16-class) corrupts transforms by ~0.4% per iteration, which compounds
@@ -147,18 +147,17 @@ def _icp_impl(
     nn_impl: str = "auto", mesh=None,
 ):
     if nn_impl == "auto":
-        nn_impl = "pruned" if jax.default_backend() == "tpu" else "xla"
+        nn_impl = platform_choice().nn_impl
     max_d2 = jnp.float32(cfg.max_correspondence_distance) ** 2
     eps_t = jnp.float32(cfg.transformation_epsilon)
     rot_thresh = jnp.float32(1.0 - cfg.transformation_epsilon)
     rel_mse = jnp.float32(cfg.euclidean_fitness_epsilon)
     abs_mse = jnp.float32(1e-12)
 
-    if nn_impl in ("pruned", "pruned_interpret"):
+    if nn_impl == "pruned":
         # spatial sort once: pruning needs tile locality; a rigid transform
         # preserves it, so the source order holds across iterations (bboxes
         # are recomputed from transformed positions every call)
-        interp = nn_impl == "pruned_interpret"
         if tgt_normals is not None:
             if normal_mask is not None:
                 tgt_xyz, tgt_mask, tgt_normals, nm_s = spatial_sort_payload(
@@ -177,17 +176,15 @@ def _icp_impl(
         def nn_corr(q, qm, tmask):
             return pallas_nn_1_pruned(
                 q, qm, tgt_xyz, tmask,
-                max_distance=cfg.max_correspondence_distance, interpret=interp,
+                max_distance=cfg.max_correspondence_distance,
             )
 
         def nn_fit(q, qm, tmask):
-            return pallas_nn_1_pruned(
-                q, qm, tgt_xyz, tmask, max_distance=None, interpret=interp,
-            )
+            return pallas_nn_1_pruned(q, qm, tgt_xyz, tmask, max_distance=None)
     elif nn_impl == "sharded":
         # point-axis scaling (SURVEY.md §5.7): the target cloud is split over
         # the mesh's 'points' axis, each shard scans its slice, and the
-        # global best reduces via one small all_gather over ICI.  Winner
+        # global best reduces via one small all_gather.  Winner
         # choice is identical to the single-device argmin: the (shard, local
         # index) order IS the global index order, so ties break the same way.
         if mesh is None:

@@ -1,10 +1,11 @@
 """Nearest-neighbor queries as blocked brute-force distance matmuls.
 
 The reference uses kd-trees (nanoflann for pose queries, pcl::search::KdTree
-for ICP correspondences and normal neighborhoods).  On TPU, exact NN is
-cheaper as dense distance algebra on the MXU: ||q-t||² = ||q||² + ||t||² -
-2·q·tᵀ, tiled over the query axis so the (Q, T) distance matrix never
-materializes in HBM (SURVEY.md §2.2 "TPU-native equivalents").
+for ICP correspondences and normal neighborhoods).  Here exact NN is dense
+distance algebra: ||q-t||² = ||q||² + ||t||² - 2·q·tᵀ, tiled over the query
+axis so only one (tile, T) distance block exists at a time.  ``nn_1`` is the
+plain reference and the CPU path; on a GPU the fine-stage search runs the
+pruned kernel in ``ops/pallas_knn.py``.
 """
 
 from __future__ import annotations

@@ -12,9 +12,9 @@ Reproduces Normal2dEstimation + PCA2D
     neighborhood (PCA2D.cpp:28-37), curvature = λ_min/(λ_0+λ_1);
   * flip toward the viewpoint (origin), :305-318.
 
-TPU design: the per-point kd-tree radius query + Eigen solve becomes tiled
+Design: the per-point kd-tree radius query + Eigen solve becomes tiled
 mask matmuls: per query tile, a (tile, P) radius mask contracts against the
-(P, 6) moment matrix [x, y, x², xy, y², 1] on the MXU, and the 2×2
+(P, 6) moment matrix [x, y, x², xy, y², 1], and the 2×2
 eigenproblem is solved in closed form — no loops, no trees.
 
 All coordinates are first shifted by the cloud's bbox center: the scatter is
@@ -128,7 +128,7 @@ def _neighbor_prep(xyz, mask, viewpoint, tile):
 def _tile_dist2(qt, base, p2c, t_sq_masked):
     """Expanded-matmul squared distances with an EXACT zero self column.
 
-    ``|q|² − 2 q·t + |t|²`` on the MXU carries absolute error
+    ``|q|² − 2 q·t + |t|²`` as a matmul carries absolute error
     ~|p−c|²·2⁻²³ (~6e-4 at 100 m from the bbox center), so the query's own
     column — whose true distance is exactly 0 — could otherwise lose the
     self slot to a near-coincident neighbor, or fall outside a tiny search
@@ -187,7 +187,7 @@ def normals_2d(
         # so a neighbor at exactly the search radius is excluded
         nbr = (d < r2) & qm[:, None]  # (tile, P)
         nbr_f = nbr.astype(jnp.float32)
-        sums = jnp.matmul(nbr_f, moments, precision=prec)  # (tile, 6) on the MXU
+        sums = jnp.matmul(nbr_f, moments, precision=prec)  # (tile, 6)
         v, curv = _sums_to_normal(sums)
 
         # the 2-neighbor "other" point = nearest neighbor excluding self;

@@ -6,10 +6,9 @@ points with out-of-bounds row/col are dropped; cells never hit stay all-zero
 (default-constructed); when several points map to one cell the **last** one in
 input order wins.
 
-TPU design: the sequential "last wins" rule becomes one ``segment_max`` over
-point indices followed by a single row gather.  Dynamic gathers on v5e cost
-~1 ms per 133k indices *regardless of row width*, so all eight point fields
-are bitcast-packed into one (P, 8) int32 matrix and fetched with one gather
+Design: the sequential "last wins" rule becomes one ``segment_max`` over
+point indices followed by a single row gather: all eight point fields are
+bitcast-packed into one (P, 8) int32 matrix and fetched with one gather
 instead of eight.
 """
 

@@ -1,16 +1,29 @@
-"""Pallas TPU kernel: fused 1-NN (distance matmul + running argmin).
+"""Exact 1-NN over spatially sorted clouds: a Pallas kernel for the GPU
+(Triton route) that prunes far tile pairs by bounding box.
 
 The registration hot op is, per ICP iteration, a (Q, T) squared-distance
-problem.  The jnp path (ops/knn.py) materializes per-tile distance blocks
-through XLA; this kernel keeps everything in VMEM: per (q-tile, t-tile) grid
-step it computes the cross term on the MXU and folds it into a running
-(min, argmin) accumulator, so the (Q, T) matrix never exists anywhere.
+problem.  The plain XLA version (``ops/knn.py::nn_1``, kept as the
+reference and the CPU path) writes a (tile, T) distance block to device
+memory for every query tile and reduces it afterwards.  This kernel never
+materializes distances: one program owns a tile of queries, walks the target
+tiles in a loop, and keeps the running (min, argmin) in registers.  Both
+clouds are Morton-sorted (``spatial_sort``), so tiles are compact boxes and
+most tile pairs are provably too far apart to hold a winner:
 
-Layout: points are staged as (8, N) planes — rows 0..2 the coordinates,
-row 3 the squared norm (+big for masked targets), rows 4..7 zero — so the
-MXU contraction runs over a padded K=8 and every block is lane-aligned.  For
-the argmin it suffices to minimize |t|² − 2·q·t (the |q|² term is constant
-per query row); the exact distance of the winner is re-derived at the end.
+  * static threshold (ICP correspondence NN): a target tile whose box is
+    further than max_correspondence_distance from the query tile's box
+    cannot produce an accepted correspondence — queries whose true NN lies
+    beyond the threshold get d² = +inf, which the ICP weights to zero anyway
+    (the reference's BatchTopPartRegistration.cpp:199-239 semantics);
+  * dynamic bound (fitness NN, no threshold): a target tile further than the
+    worst current best of the query tile cannot improve any query.  Target
+    tiles are visited starting from the diagonal (sorted clouds ⇒ spatially
+    aligned), so the bound tightens after the first few near tiles.
+
+The contraction has depth 3, so it runs as f32 FMAs on the CUDA cores; the
+tensor cores (and TF32) never enter.  For the argmin it suffices to minimize
+|t|² − 2·q·t (|q|² is constant per query); the winner's exact distance is
+re-derived from its coordinates at the end.
 
 Reference equivalents: pcl::search::KdTree 1-NN inside ICP correspondence
 estimation (/root/reference/BatchTopPartRegistration.cpp:199-239) and
@@ -23,123 +36,11 @@ import functools
 
 import jax
 import jax.numpy as jnp
-
-try:  # pallas TPU lowering is only exercised on TPU; CPU uses interpret mode
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    PALLAS_AVAILABLE = True
-except Exception:  # pragma: no cover
-    PALLAS_AVAILABLE = False
+import numpy as np
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import triton as plgpu
 
 _BIG = 3e38  # python float: a jnp constant would be captured by the kernel
-
-
-def _nn_kernel(q_ref, t_ref, val_ref, idx_ref):
-    j = pl.program_id(1)
-    tt = t_ref.shape[1]
-
-    @pl.when(j == 0)
-    def _():
-        val_ref[:] = jnp.full_like(val_ref, jnp.float32(_BIG))
-        idx_ref[:] = jnp.zeros_like(idx_ref)
-
-    # cross(i, j) = Σ_k q[k, i] · t[k, j] — MXU contraction over padded K=8
-    cross = jax.lax.dot_general(
-        q_ref[:],
-        t_ref[:],
-        dimension_numbers=(((0,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
-        precision=jax.lax.Precision.HIGHEST,  # full-f32 MXU passes
-    )  # (TQ, TT)
-    score = t_ref[3, :][None, :] - 2.0 * cross
-    local_best = jnp.min(score, axis=1)
-    local_arg = jnp.argmin(score, axis=1).astype(jnp.int32) + j * tt
-
-    better = local_best < val_ref[0, :]
-    val_ref[0, :] = jnp.where(better, local_best, val_ref[0, :])
-    idx_ref[0, :] = jnp.where(better, local_arg, idx_ref[0, :])
-
-
-def _plane_layout(xyz: jnp.ndarray, mask: jnp.ndarray, n_pad: int, with_sq: bool):
-    """(N,3)+(N,) → (8, n_pad) planes [x, y, z, row3, 0…].
-
-    Row 3 carries |p|² (+big when masked) for *targets* only — query planes
-    keep it zero so the K=8 contraction sums coordinates alone.
-    """
-    n = xyz.shape[0]
-    planes = jnp.zeros((8, n_pad), jnp.float32)
-    planes = planes.at[0, :n].set(xyz[:, 0])
-    planes = planes.at[1, :n].set(xyz[:, 1])
-    planes = planes.at[2, :n].set(xyz[:, 2])
-    if with_sq:
-        sq = jnp.where(mask, jnp.sum(xyz * xyz, axis=1), _BIG)
-        planes = planes.at[3, :n].set(sq)
-        if n < n_pad:
-            planes = planes.at[3, n:].set(_BIG)
-    return planes
-
-
-@functools.partial(jax.jit, static_argnames=("tq", "tt", "interpret"))
-def pallas_nn_1(
-    query: jnp.ndarray,
-    query_mask: jnp.ndarray,
-    target: jnp.ndarray,
-    target_mask: jnp.ndarray,
-    tq: int = 256,
-    tt: int = 2048,
-    interpret: bool = False,
-) -> tuple[jnp.ndarray, jnp.ndarray]:
-    """Drop-in fused variant of ops.knn.nn_1 (TPU; interpret=True elsewhere)."""
-    qn = query.shape[0]
-    tn = target.shape[0]
-    qp = -(-qn // tq) * tq
-    tp = -(-tn // tt) * tt
-    q_planes = _plane_layout(query, query_mask, qp, with_sq=False)
-    t_planes = _plane_layout(target, target_mask, tp, with_sq=True)
-
-    grid = (qp // tq, tp // tt)
-    val, idx = pl.pallas_call(
-        _nn_kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((8, tq), lambda i, j: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((8, tt), lambda i, j: (0, j), memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((1, tq), lambda i, j: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, tq), lambda i, j: (0, i), memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((1, qp), jnp.float32),
-            jax.ShapeDtypeStruct((1, qp), jnp.int32),
-        ],
-        interpret=interpret,
-    )(q_planes, t_planes)
-
-    idx = idx[0, :qn]
-    idx = jnp.clip(idx, 0, tn - 1)
-    diff = query - target[idx]
-    d2 = jnp.sum(diff * diff, axis=1)
-    d2 = jnp.where(query_mask & target_mask[idx], d2, jnp.inf)
-    return idx, d2
-
-
-# ---------------------------------------------------------------------------
-# Bounding-box-pruned variant: when both clouds are spatially sorted, most
-# (q-tile, t-tile) block pairs are far apart and can be skipped entirely.
-#
-# Two pruning rules, both exact:
-#   * static threshold (ICP correspondence NN): a block whose boxes are
-#     further apart than max_correspondence_distance cannot produce an
-#     accepted correspondence — queries whose true NN lies beyond the
-#     threshold get d² = +inf, which the ICP weights to zero anyway
-#     (/root/reference/BatchTopPartRegistration.cpp:199-239 semantics);
-#   * dynamic bound (fitness NN, no threshold): a block whose boxes are
-#     further apart than the current worst per-query best of this q-tile
-#     cannot improve any query.  Target tiles are visited starting from the
-#     diagonal (sorted clouds ⇒ spatially aligned), so the bound tightens
-#     after the first few near blocks.
 
 
 def morton_sort_key(xyz: jnp.ndarray, mask: jnp.ndarray) -> jnp.ndarray:
@@ -168,9 +69,10 @@ def spatial_sort(xyz: jnp.ndarray, mask: jnp.ndarray):
 
 
 def spatial_sort_payload(xyz: jnp.ndarray, mask: jnp.ndarray, *extras):
-    """Morton sort carrying payload columns through the sort (cheaper than
-    argsort + per-index gathers on v5e).  Returns (xyz_s, mask_s, *extras_s);
-    each extra may be (N,) or (N, K) (sorted column-wise)."""
+    """Morton sort carrying payload columns through the sort (one sort
+    instead of an argsort plus a gather per column).  Returns
+    (xyz_s, mask_s, *extras_s); each extra may be (N,) or (N, K) (sorted
+    column-wise)."""
     key = morton_sort_key(xyz, mask)
     cols = [xyz[:, 0], xyz[:, 1], xyz[:, 2], mask.astype(jnp.int32)]
     splits = []
@@ -194,152 +96,96 @@ def spatial_sort_payload(xyz: jnp.ndarray, mask: jnp.ndarray, *extras):
 
 
 def _tile_bboxes(xyz: jnp.ndarray, mask: jnp.ndarray, tile: int) -> jnp.ndarray:
-    """(8, n_tiles) f32: rows [minx miny minz maxx maxy maxz 0 0]; fully
-    masked tiles get an impossible box (min=+big, max=-big) so every gap test
-    skips them."""
+    """(6, n_tiles) f32: rows [minx miny minz maxx maxy maxz]; fully masked
+    tiles get an impossible box (min=+big, max=-big) so every gap test skips
+    them."""
     n = xyz.shape[0]
     nt = n // tile
     x = xyz.reshape(nt, tile, 3)
     m = mask.reshape(nt, tile, 1)
     mins = jnp.min(jnp.where(m, x, _BIG), axis=1)
     maxs = jnp.max(jnp.where(m, x, -_BIG), axis=1)
-    out = jnp.zeros((8, nt), jnp.float32)
-    out = out.at[0:3].set(mins.T)
-    out = out.at[3:6].set(maxs.T)
-    return out
+    return jnp.concatenate([mins.T, maxs.T], axis=0)
 
 
 def _diag_tile(i, j, nq_t, nt_t):
-    """t-tile visited at grid step (i, j): diagonal start so spatially
-    aligned tiles come first.  SINGLE source of truth — used both by the
-    kernel body (for bbox gaps and global indices) and by the BlockSpec
-    index_map (for which tile to load); they must agree or every returned
-    index silently points into the wrong tile."""
+    """Target tile visited at step j by query tile i: a diagonal start, so
+    spatially aligned tiles come first."""
     return (i * nt_t // nq_t + j) % nt_t
 
 
-def _make_nn_pruned_kernel(nq_t, nt_t):
-    def _nn_pruned_kernel(qb_ref, tb_ref, thr_ref, q_ref, t_ref, val_ref,
-                          idx_ref):
-        i = pl.program_id(0)
-        j = pl.program_id(1)
-        tt = t_ref.shape[1]
+def _nn_kernel(qb_ref, tb_ref, thr_ref, q_ref, t_ref, val_ref, idx_ref, *,
+               nq_t: int, nt_t: int, tq: int, tt: int):
+    """One program per query tile; an in-kernel loop over target tiles.
+
+    ``q_ref`` (4, qp): x, y, z, valid.  ``t_ref`` (4, tp): x, y, z, |t|²
+    (+big for masked targets).  ``qb_ref``/``tb_ref`` (6, n_tiles): boxes.
+    Writes the per-query best d² estimate (−big for masked queries, +big
+    when no tile was visited) and its global target index.
+    """
+    i = pl.program_id(0)
+    qs = pl.ds(i * tq, tq)
+    qx, qy, qz = q_ref[0, qs], q_ref[1, qs], q_ref[2, qs]
+    q2 = qx * qx + qy * qy + qz * qz
+    # masked queries start at -big: they never update and never hold the
+    # dynamic bound open
+    best = jnp.where(q_ref[3, qs] > 0.5, _BIG, -_BIG)
+    arg = jnp.zeros((tq,), jnp.int32)
+    thr = thr_ref[0]
+    q_lo = [qb_ref[d, i] for d in range(3)]
+    q_hi = [qb_ref[3 + d, i] for d in range(3)]
+
+    def visit(carry):
+        best, arg, jj = carry
+        ts = pl.ds(jj * tt, tt)
+        tx, ty, tz = t_ref[0, ts], t_ref[1, ts], t_ref[2, ts]
+        cross = (qx[:, None] * tx[None, :] + qy[:, None] * ty[None, :]
+                 + qz[:, None] * tz[None, :])
+        score = t_ref[3, ts][None, :] - 2.0 * cross
+        tile_best = jnp.min(score, axis=1) + q2
+        tile_arg = jnp.argmin(score, axis=1).astype(jnp.int32) + jj * tt
+        # equal scores break toward the LOWEST global index (the kd-tree /
+        # ops.knn.nn_1 convention), whatever the visit order
+        better = (tile_best < best) | ((tile_best == best) & (tile_arg < arg))
+        return jnp.where(better, tile_best, best), jnp.where(better, tile_arg, arg)
+
+    def step(j, carry):
+        best, arg, bound = carry
         jj = _diag_tile(i, j, nq_t, nt_t)
-
-        @pl.when(j == 0)
-        def _():
-            # masked queries start at -BIG so they never update and never hold
-            # the dynamic bound open; valid queries start at +BIG
-            masked = q_ref[4, :] > 0.5
-            val_ref[0, :] = jnp.where(
-                masked, -jnp.float32(_BIG), jnp.float32(_BIG)
-            )
-            idx_ref[0, :] = jnp.zeros_like(idx_ref[0, :])
-
-        # box-to-box squared gap
         gap = jnp.float32(0.0)
         for d in range(3):
-            lo_q, hi_q = qb_ref[d, i], qb_ref[3 + d, i]
-            lo_t, hi_t = tb_ref[d, jj], tb_ref[3 + d, jj]
-            g = jnp.maximum(jnp.maximum(lo_t - hi_q, lo_q - hi_t), 0.0)
+            g = jnp.maximum(
+                jnp.maximum(tb_ref[d, jj] - q_hi[d], q_lo[d] - tb_ref[3 + d, jj]),
+                0.0,
+            )
             gap = gap + g * g
 
-        bound = jnp.minimum(thr_ref[0], jnp.max(val_ref[0, :]))
+        def hit(c):
+            b, a = visit((c[0], c[1], jj))
+            # the bound only moves when a tile was visited, so it rides the
+            # loop carry instead of being re-reduced every step
+            return b, a, jnp.minimum(thr, jnp.max(b))
 
-        @pl.when(gap <= bound)
-        def _():
-            cross = jax.lax.dot_general(
-                q_ref[:],
-                t_ref[:],
-                dimension_numbers=(((0,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32,
-                precision=jax.lax.Precision.HIGHEST,
-            )  # (TQ, TT)
-            score = t_ref[3, :][None, :] - 2.0 * cross
-            q2 = q_ref[0, :] ** 2 + q_ref[1, :] ** 2 + q_ref[2, :] ** 2
-            local_best = jnp.min(score, axis=1) + q2  # true d² of the block winner
-            local_arg = jnp.argmin(score, axis=1).astype(jnp.int32) + jj * tt
+        return jax.lax.cond(gap <= bound, hit, lambda c: c, (best, arg, bound))
 
-            # equal scores break toward the LOWEST global index (matching
-            # ops.knn.nn_1 / the kd-tree convention) — the diagonal-start visit
-            # order would otherwise make tie winners depend on the q-tile
-            better = (local_best < val_ref[0, :]) | (
-                (local_best == val_ref[0, :]) & (local_arg < idx_ref[0, :])
-            )
-            val_ref[0, :] = jnp.where(better, local_best, val_ref[0, :])
-            idx_ref[0, :] = jnp.where(better, local_arg, idx_ref[0, :])
-
-    return _nn_pruned_kernel
+    best, arg, _ = jax.lax.fori_loop(
+        0, nt_t, step, (best, arg, jnp.minimum(thr, jnp.max(best)))
+    )
+    val_ref[qs] = best
+    idx_ref[qs] = arg
 
 
-def _make_nn_pruned_loop_kernel(nq_t, nt_t, tt):
-    """1-D-grid variant: one grid step per q-tile, inner fori_loop over
-    t-tiles sliced from the FULL target planes held in VMEM.  The 2-D-grid
-    kernel pays its BlockSpec t-tile copy and a VPU→scalar bound readback on
-    every grid step whether or not the body runs, which pins the pass to
-    ~1.6 µs × (nq_t·nt_t) regardless of how well the bounds prune (measured:
-    seeding the bounds moved 49k² passes by <2%).  Here the whole (8, tp)
-    t-plane array is one VMEM block with a constant index map — loaded once
-    and revolved across grid steps — pruned steps cost only scalar-unit
-    arithmetic (the dynamic bound rides the loop carry as a scalar), and
-    visited tiles pay just the MXU/VPU work.  vmap-safe (used by the batched
-    registration stages), unlike a manual-DMA formulation (memory-space ANY
-    inputs reject nontrivial batched index maps)."""
-
-    def kernel(qb_ref, tb_ref, thr_ref, q_ref, t_vmem, val_ref, idx_ref):
-        i = pl.program_id(0)
-
-        masked = q_ref[4, :] > 0.5
-        val_ref[0, :] = jnp.where(masked, -jnp.float32(_BIG),
-                                  jnp.float32(_BIG))
-        idx_ref[0, :] = jnp.zeros_like(idx_ref[0, :])
-
-        q2 = q_ref[0, :] ** 2 + q_ref[1, :] ** 2 + q_ref[2, :] ** 2
-
-        def do_visit(jj, bound):
-            t_tile = t_vmem[:, pl.ds(jj * tt, tt)]
-            cross = jax.lax.dot_general(
-                q_ref[:],
-                t_tile,
-                dimension_numbers=(((0,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32,
-                precision=jax.lax.Precision.HIGHEST,
-            )  # (TQ, TT)
-            score = t_tile[3, :][None, :] - 2.0 * cross
-            local_best = jnp.min(score, axis=1) + q2
-            local_arg = jnp.argmin(score, axis=1).astype(jnp.int32) + jj * tt
-            better = (local_best < val_ref[0, :]) | (
-                (local_best == val_ref[0, :]) & (local_arg < idx_ref[0, :])
-            )
-            val_ref[0, :] = jnp.where(better, local_best, val_ref[0, :])
-            idx_ref[0, :] = jnp.where(better, local_arg, idx_ref[0, :])
-            return jnp.minimum(thr_ref[0], jnp.max(val_ref[0, :]))
-
-        # the dynamic bound rides the loop carry as a SCALAR: recomputing
-        # min(thr, max(val)) every step costs a VPU→scalar readback (~1.5 µs,
-        # the dominant per-step cost of the 2-D kernel); val only changes on
-        # visited tiles, so the carried bound is exact and pruned steps pay
-        # scalar-unit arithmetic only
-        def visit(j, bound):
-            jj = _diag_tile(i, j, nq_t, nt_t)
-            gap = jnp.float32(0.0)
-            for d in range(3):
-                lo_q, hi_q = qb_ref[d, i], qb_ref[3 + d, i]
-                lo_t, hi_t = tb_ref[d, jj], tb_ref[3 + d, jj]
-                g = jnp.maximum(jnp.maximum(lo_t - hi_q, lo_q - hi_t), 0.0)
-                gap = gap + g * g
-            return jax.lax.cond(
-                gap <= bound, do_visit, lambda _, b: b, jj, bound
-            )
-
-        bound0 = jnp.minimum(thr_ref[0], jnp.max(val_ref[0, :]))
-        jax.lax.fori_loop(0, nt_t, visit, bound0)
-
-    return kernel
+def _planes(xyz, n_pad: int, fourth):
+    """(N,3) → (4, n_pad) planes [x, y, z, fourth] with zero padding."""
+    n = xyz.shape[0]
+    return jnp.zeros((4, n_pad), jnp.float32).at[:, :n].set(
+        jnp.concatenate([xyz.T, fourth[None]], axis=0)
+    )
 
 
 @functools.partial(
-    jax.jit, static_argnames=("tq", "tt", "max_distance", "interpret", "kernel")
+    jax.jit,
+    static_argnames=("max_distance", "tq", "tt", "num_warps", "interpret"),
 )
 def pallas_nn_1_pruned(
     query: jnp.ndarray,
@@ -347,117 +193,100 @@ def pallas_nn_1_pruned(
     target: jnp.ndarray,
     target_mask: jnp.ndarray,
     max_distance: float | None = None,
-    tq: int = 256,
-    tt: int = 1024,
+    tq: int = 64,
+    tt: int = 32,
+    num_warps: int = 2,
     interpret: bool = False,
-    kernel: str = "auto",
 ) -> tuple[jnp.ndarray, jnp.ndarray]:
-    """1-NN with block pruning, exact up to score-domain ties.  Both clouds
+    """1-NN with tile pruning, exact up to score-domain ties.  Both clouds
     MUST be spatially sorted (``spatial_sort``) for the pruning to bite.
 
-    Winner selection compares MXU scores ``|t|² − 2q·t`` (absolute error
-    ~|p|²·2⁻²³, like the XLA blocked-argmin path): targets whose true
-    distances differ by less than that window may resolve either way.  Away
-    from such ties results match the exact oracle index-for-index (tested);
-    the returned distance is always re-derived exactly from the winner's
-    coordinates.  Queries with no target within ``max_distance`` return
-    +inf.
+    Returns (index (Q,) int32, squared distance (Q,) f32) like
+    ``ops.knn.nn_1``.  Winners are picked on f32 scores ``|t|² − 2q·t``
+    (absolute error ~|p|²·2⁻²³, like the XLA blocked argmin): targets whose
+    true distances differ by less than that window may resolve either way.
+    Away from such ties results match the exact oracle index for index; the
+    returned distance is always re-derived from the winner's coordinates.
+    Queries with no target within ``max_distance`` return +inf.  vmap-safe
+    (the registration stages map it over the pair batch).
+
+    ``tq``/``tt`` are the query/target tile sizes (powers of two) and
+    ``num_warps`` the warps per program; the defaults are the fastest of a
+    sweep on an H100 at 16 x 49k² (PERF.md).  ``interpret=True`` runs the
+    kernel in the Pallas interpreter (tests only).
     """
-    qn = query.shape[0]
-    tn = target.shape[0]
+    if tq & (tq - 1) or tt & (tt - 1):
+        raise ValueError(f"tile sizes must be powers of two, got {tq}, {tt}")
+    qn, tn = query.shape[0], target.shape[0]
     qp = -(-qn // tq) * tq
     tp = -(-tn // tt) * tt
-    q_planes = _plane_layout(query, query_mask, qp, with_sq=False)
-    q_planes = q_planes.at[4, :qn].set(jnp.where(query_mask, 0.0, 1.0))
-    if qn < qp:
-        q_planes = q_planes.at[4, qn:].set(1.0)
-    t_planes = _plane_layout(target, target_mask, tp, with_sq=True)
-
-    qxyz_p = jnp.zeros((qp, 3), jnp.float32).at[:qn].set(query)
-    qmask_p = jnp.zeros((qp,), bool).at[:qn].set(query_mask)
-    txyz_p = jnp.zeros((tp, 3), jnp.float32).at[:tn].set(target)
-    tmask_p = jnp.zeros((tp,), bool).at[:tn].set(target_mask)
-    q_bbox = _tile_bboxes(qxyz_p, qmask_p, tq)
-    t_bbox = _tile_bboxes(txyz_p, tmask_p, tt)
+    q_planes = _planes(query, qp, query_mask.astype(jnp.float32))
+    t_sq = jnp.where(target_mask, jnp.sum(target * target, axis=1), _BIG)
+    t_planes = _planes(target, tp, t_sq)
+    t_planes = t_planes.at[3, tn:].set(_BIG)
+    q_bbox = _tile_bboxes(
+        q_planes[:3].T, jnp.zeros((qp,), bool).at[:qn].set(query_mask), tq
+    )
+    t_bbox = _tile_bboxes(
+        t_planes[:3].T, jnp.zeros((tp,), bool).at[:tn].set(target_mask), tt
+    )
     thr = jnp.full(
         (1,),
-        jnp.float32(_BIG) if max_distance is None
-        else jnp.float32(max_distance) ** 2,
+        _BIG if max_distance is None else np.float32(max_distance) ** 2,
         jnp.float32,
     )
-
     nq_t, nt_t = qp // tq, tp // tt
-    out_spec_2d = [
-        pl.BlockSpec((1, tq), lambda i, j: (0, i), memory_space=pltpu.VMEM),
-        pl.BlockSpec((1, tq), lambda i, j: (0, i), memory_space=pltpu.VMEM),
-    ]
-    out_shape = [
-        jax.ShapeDtypeStruct((1, qp), jnp.float32),
-        jax.ShapeDtypeStruct((1, qp), jnp.int32),
-    ]
-    # the loop kernel holds the FULL (8, tp) target planes in VMEM (32·tp
-    # bytes); past ~8 MB fall back to the tiled 2-D-grid kernel rather than
-    # risk VMEM exhaustion (fine-stage clouds are ≤65k ≈ 2 MB).  ``kernel``
-    # overrides the choice ("2d" / "loop") — tests use "loop" with
-    # interpret=True to diff-test the compiled TPU path's kernel on CPU.
-    if kernel == "auto":
-        use_2d = interpret or tp > 262_144
-    elif kernel in ("2d", "loop"):
-        use_2d = kernel == "2d"
-    else:
-        raise ValueError(f"kernel must be 'auto', '2d' or 'loop', got {kernel!r}")
-    if use_2d:
-        val, idx = pl.pallas_call(
-            _make_nn_pruned_kernel(nq_t, nt_t),
-            grid=(nq_t, nt_t),
-            in_specs=[
-                pl.BlockSpec(memory_space=pltpu.SMEM),  # q bboxes
-                pl.BlockSpec(memory_space=pltpu.SMEM),  # t bboxes
-                pl.BlockSpec(memory_space=pltpu.SMEM),  # threshold²
-                pl.BlockSpec((8, tq), lambda i, j: (0, i),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec(
-                    (8, tt),
-                    lambda i, j: (0, _diag_tile(i, j, nq_t, nt_t)),
-                    memory_space=pltpu.VMEM,
-                ),
-            ],
-            out_specs=out_spec_2d,
-            out_shape=out_shape,
-            interpret=interpret,
-        )(q_bbox, t_bbox, thr, q_planes, t_planes)
-    else:
-        # compiled TPU path: 1-D grid + inner pruning loop over t-tiles
-        # sliced from the full VMEM-resident t planes (constant index map →
-        # loaded once, revolved) — pass time scales with visited tiles, not
-        # grid size, and the formulation is vmap-safe for the batched
-        # registration stages
-        val, idx = pl.pallas_call(
-            _make_nn_pruned_loop_kernel(nq_t, nt_t, tt),
-            grid=(nq_t,),
-            in_specs=[
-                pl.BlockSpec(memory_space=pltpu.SMEM),  # q bboxes
-                pl.BlockSpec(memory_space=pltpu.SMEM),  # t bboxes
-                pl.BlockSpec(memory_space=pltpu.SMEM),  # threshold²
-                pl.BlockSpec((8, tq), lambda i: (0, i),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((8, tp), lambda i: (0, 0),
-                             memory_space=pltpu.VMEM),  # full t planes
-            ],
-            out_specs=[
-                pl.BlockSpec((1, tq), lambda i: (0, i),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((1, tq), lambda i: (0, i),
-                             memory_space=pltpu.VMEM),
-            ],
-            out_shape=out_shape,
-            interpret=interpret,
-        )(q_bbox, t_bbox, thr, q_planes, t_planes)
+    val, idx = pl.pallas_call(
+        functools.partial(_nn_kernel, nq_t=nq_t, nt_t=nt_t, tq=tq, tt=tt),
+        grid=(nq_t,),
+        out_shape=[
+            jax.ShapeDtypeStruct((qp,), jnp.float32),
+            jax.ShapeDtypeStruct((qp,), jnp.int32),
+        ],
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=num_warps, num_stages=1),
+        interpret=interpret,
+        name="nn_1_pruned",
+    )(q_bbox, t_bbox, thr, q_planes, t_planes)
 
-    idx = idx[0, :qn]
-    idx = jnp.clip(idx, 0, tn - 1)
-    found = val[0, :qn] < jnp.float32(_BIG) / 2
+    idx = jnp.clip(idx[:qn], 0, tn - 1)
+    found = val[:qn] < jnp.float32(_BIG) / 2
     diff = query - target[idx]
     d2 = jnp.sum(diff * diff, axis=1)
     d2 = jnp.where(query_mask & target_mask[idx] & found, d2, jnp.inf)
     return idx, d2
+
+
+def check_against_nn_1(target, ref, got, max_distance: float | None = None,
+                       max_swap_frac: float = 0.001) -> int:
+    """Assert that ``got`` = (idx, d2) from :func:`pallas_nn_1_pruned`
+    agrees with ``ref`` = ``ops.knn.nn_1``'s (idx, d2) on the same clouds.
+
+    Both pick winners on f32 scores with absolute error ~|t|²·2⁻²³, so a
+    winner may swap between targets whose exact distances lie within the
+    window ``8·max|t|²·2⁻²³``; elsewhere indices and (re-derived) distances
+    must be identical, and swaps must stay rare.  With ``max_distance`` the
+    comparison covers the queries that ``ref`` finds inside it; beyond it
+    ``got`` must report +inf or a distance past the threshold.  Returns the
+    number of winner swaps."""
+    t = np.asarray(target, np.float64)
+    i_ref, d_ref = (np.asarray(a) for a in ref)
+    i_got, d_got = (np.asarray(a) for a in got)
+    window = 8.0 * float(np.max(np.sum(t * t, axis=1))) * 2.0**-23
+    sel = np.isfinite(d_ref)
+    if max_distance is not None:
+        thr = float(np.float32(max_distance) ** 2)
+        beyond = sel & (d_ref > thr)
+        assert np.all(~np.isfinite(d_got[beyond])
+                      | (d_got[beyond] > thr - window)), "NN beyond the gate"
+        sel &= ~beyond
+    swap = sel & (i_got != i_ref)
+    assert np.all(np.abs(d_got[swap] - d_ref[swap]) <= window), (
+        "NN winner swap outside the score window"
+    )
+    assert swap.sum() <= max(1, int(max_swap_frac * sel.sum())), (
+        f"NN: {int(swap.sum())} winner swaps, more than near-tie noise"
+    )
+    same = sel & ~swap
+    assert np.array_equal(d_got[same], d_ref[same]), "NN distances differ"
+    return int(swap.sum())

@@ -8,7 +8,7 @@ Semantics reproduced:
     eigendecomposition with eigenpairs reordered DESCENDING;
   * ``project`` (:81-108): ``eigvecsᵀ · (p.xy − mean)`` with z = 0.
 
-TPU design: the per-index accumulation becomes one masked moment matmul; the
+Design: the per-index accumulation becomes one masked moment matmul; the
 2x2 eigenproblem is closed-form.  Eigenvector signs follow Eigen's
 SelfAdjointEigenSolver only up to sign (inherently arbitrary); tests compare
 up to sign.

@@ -1,10 +1,10 @@
 """Fused per-cloud preprocessing: ordering + ground marking + BEV rasters.
 
 This is the hot loop of the flagship pipeline
-(/root/reference/BatchMultiBevGen.cpp:727-757).  On TPU the whole per-cloud
+(the reference's BatchMultiBevGen.cpp:727-757).  The whole per-cloud
 body is one jitted function over fixed-size padded arrays; the batch
 dimension is vmapped and (in pipelines) sharded over the device mesh — pure
-data parallelism, no cross-chip collectives in the hot path (SURVEY.md §5.8).
+data parallelism, no cross-device collectives in the hot path (SURVEY.md §5.8).
 """
 
 from __future__ import annotations

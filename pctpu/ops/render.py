@@ -1,4 +1,4 @@
-"""Headless snapshot rendering — the TPU-native stand-in for the reference's
+"""Headless snapshot rendering — pctpu's stand-in for the reference's
 interactive PCLVisualizer sessions.
 
 The reference opens spin-loop viewers in three binaries:
@@ -11,7 +11,7 @@ The reference opens spin-loop viewers in three binaries:
     (eigvec x 200 from the centroid, colored b/g/r), white background
     (/root/reference/main.cpp:100-135).
 
-Interactive windows make no sense on a headless TPU pod, so pctpu renders
+Interactive windows make no sense on a headless accelerator host, so pctpu renders
 the same scenes to PNG: an orthographic point-splat with a device-side
 z-buffer.  One ``scatter-max`` of ``depth_quantized * n_layers + layer``
 per splatted pixel resolves visibility; the winning layer indexes an RGB

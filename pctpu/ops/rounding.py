@@ -15,8 +15,8 @@ Two patterns appear in the reference's grid indexing:
    addition needs no f64 at all: for t = f32_expr,
    round64(t + 0.5) = floor(t) + 1 when t >= -0.5 (because t+1.0 is exact in
    f64) and = ceil(t) when t < -0.5 (because (t+0.5)-0.5 is exact).
-   :func:`bev_cell` implements that identity — bit-exact vs the C++ on TPU
-   f32 hardware.
+   :func:`bev_cell` implements that identity — bit-exact vs the C++ on
+   f32-only hardware.
 
 ``jnp.round``/``np.round`` are round-half-to-even and must not be used here.
 """

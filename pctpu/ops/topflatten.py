@@ -8,7 +8,7 @@ dropped, :113-116); ground (label==0) skipped; cells with < 20 points
 skipped; per cell keep round(0.2*n) points sorted by z descending; output
 iterates cells in (gx, gy) row-major order, z-descending within a cell.
 
-TPU design: the per-cell sort becomes one global lexsort by (cell, -z); a
+Design: the per-cell sort becomes one global lexsort by (cell, -z); a
 point's rank inside its cell is its sorted position minus the cell's start
 offset, and selection is ``rank < k(cell)`` — fixed shapes, no ragged
 buckets.  The compacted output preserves the reference's exact point order.
@@ -42,9 +42,8 @@ def extract_top_and_flatten(
     p = cloud.capacity
 
     # global sort: cell ascending, z descending (stable → original order on
-    # ties).  Payload-carrying multi-operand sort: a v5e gather costs ~8 ns
-    # per index while an extra sort operand is nearly free, so x/y ride the
-    # sort instead of being fetched through argsort indices afterwards.
+    # ties).  Payload-carrying multi-operand sort: x/y ride the sort
+    # instead of being fetched through argsort indices afterwards.
     cell_s, _, x_s, y_s = jax.lax.sort(
         [cell, -cloud.z, cloud.x, cloud.y], num_keys=2, is_stable=True
     )

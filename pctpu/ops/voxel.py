@@ -6,15 +6,17 @@ ijk = floor(coord / leaf) offset by the cloud min; one output point per
 occupied voxel = the centroid of its points; outputs ordered by ascending
 flat voxel index (PCL sorts its index vector).
 
-TPU design: dynamic voxel counts become a fixed-size sort + segment mean:
-sort points by voxel key, detect segment heads, scatter-mean, and compact —
-all static shapes, fully parallel.
+Design: dynamic voxel counts become a fixed-size sort + segment mean: sort
+points by voxel key, detect segment heads, fold each voxel's points in order
+(``ops/segment.py``), and compact — all static shapes.
 """
 
 from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
+
+from pctpu.ops.segment import ordered_segment_sum
 
 
 def voxel_downsample(
@@ -51,8 +53,8 @@ def voxel_downsample(
     sentinel = div[0] * div[1] * div[2]
     key = jnp.where(mask, key, sentinel)
 
-    # payload-carrying stable sort (x/y/z ride the sort; gathers through an
-    # argsort permutation cost ~8 ns/index on v5e, extra sort operands don't)
+    # payload-carrying stable sort (x/y/z ride the sort instead of being
+    # gathered through an argsort permutation)
     key_s, x_s, y_s, z_s, m_s = jax.lax.sort(
         [key, xyz[:, 0], xyz[:, 1], xyz[:, 2], mask.astype(jnp.int32)],
         num_keys=1,
@@ -67,19 +69,12 @@ def voxel_downsample(
     seg = jnp.cumsum(head.astype(jnp.int32)) - 1  # segment id per sorted point
     seg = jnp.where(mask_s, seg, n - 1)  # park padding in the last slot
 
-    # ONE fused (n, 4) scatter for (x, y, z, count): scatter cost on v5e is
-    # per update *index*, so packing the count column in is nearly free while
-    # a second scatter over the same indices costs another full pass
-    updates = jnp.concatenate(
-        [
-            jnp.where(mask_s[:, None], xyz_s, 0.0),
-            mask_s.astype(jnp.float32)[:, None],
-        ],
-        axis=1,
-    )
-    acc = jnp.zeros((n, 4), jnp.float32).at[seg].add(updates)
-    ssum = acc[:, :3]
-    scount = acc[:, 3]
+    # coordinate sums fold in sorted (= stable input) order per voxel; the
+    # counts are integer adds, exact in any order
+    fold_ids = jnp.where(mask_s, seg, n)
+    ssum = ordered_segment_sum(xyz_s, fold_ids, n)
+    scount = jnp.zeros((n + 1,), jnp.int32).at[fold_ids].add(1)[:n]
+    scount = scount.astype(jnp.float32)
     nvox = jnp.sum(head.astype(jnp.int32))
     valid = jnp.arange(n) < nvox
     centroids = jnp.where(

@@ -18,7 +18,9 @@ def initialize(
 ) -> None:
     """Initialize jax.distributed (no-op for single-process runs).
 
-    With no arguments, relies on the cluster environment (TPU pod metadata).
+    GPU hosts carry no cluster metadata JAX can read, so multi-process
+    runs pass all three: ``coordinator_address`` (``host:port`` of process
+    0), ``num_processes`` and this process's ``process_id``.
     """
     if num_processes is not None and num_processes <= 1:
         return

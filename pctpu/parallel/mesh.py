@@ -1,6 +1,6 @@
 """Device-mesh utilities: data-parallel batch sharding + point-sharded NN.
 
-The reference is single-process single-thread (SURVEY.md §5.8); the TPU-native
+The reference is single-process single-thread (SURVEY.md §5.8); pctpu's
 scaling story is:
 
   * **data parallelism** over the cloud-batch axis for the preprocessing/BEV
@@ -11,7 +11,9 @@ scaling story is:
   * ``psum`` reductions for aggregate metrics only.
 
 All helpers take an explicit ``jax.sharding.Mesh`` so the same code runs on
-one chip, a v5e pod slice, or the CPU-device test mesh.
+one GPU, the GPUs of one host, or the CPU-device test mesh.  The mesh is a
+plain (data, points) reshape of the device list: every GPU of a host reaches
+every other at the same rate, so no device order is preferred.
 """
 
 from __future__ import annotations

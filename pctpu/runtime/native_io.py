@@ -1,22 +1,20 @@
 """ctypes bindings for the native IO accelerator (native/pctpu_io.cpp).
 
-Falls back to the pure-Python writers when the shared library is absent.
-The library is built on demand (g++ + zlib, both in the image); artifacts
-produced through either path decode identically (tests/test_native_io.py).
+Falls back to the pure-Python writers when the shared library cannot be
+built.  The library is built on first use (g++ + zlib,
+``pctpu/runtime/native_build.py``); artifacts produced through either path
+decode identically (tests/test_native_io.py).
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
-import subprocess
 import threading
 
 import numpy as np
 
-_REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-_SRC = os.path.join(_REPO, "native", "pctpu_io.cpp")
-_LIB = os.path.join(_REPO, "native", "libpctpu_io.so")
+from pctpu.runtime.native_build import build, native_source
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -30,21 +28,8 @@ def _load() -> ctypes.CDLL | None:
             return _lib
         _tried = True
         try:
-            if not os.path.exists(_LIB) or (
-                os.path.exists(_SRC)
-                and os.path.getmtime(_LIB) < os.path.getmtime(_SRC)
-            ):
-                # build to a temp name and rename: concurrent processes
-                # (multi-host shards, parallel CLIs) must never dlopen a
-                # half-written .so — rename is atomic on POSIX
-                tmp = f"{_LIB}.build.{os.getpid()}"
-                subprocess.run(
-                    ["g++", "-O2", "-shared", "-fPIC", "-o", tmp, _SRC, "-lz"],
-                    check=True,
-                    capture_output=True,
-                )
-                os.replace(tmp, _LIB)
-            lib = ctypes.CDLL(_LIB)
+            lib = ctypes.CDLL(build(native_source("pctpu_io.cpp"), ["-O2"],
+                                    ["-lz"]))
             lib.pctpu_write_png.argtypes = [
                 ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                 ctypes.c_char_p,

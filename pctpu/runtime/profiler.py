@@ -5,7 +5,7 @@ The reference brackets hot sections with std::chrono and prints running
 averages (/root/reference/BatchMultiBevGen.cpp:732-759,
 BatchTopPartRegistration.cpp:396-461).  StageTimer accumulates per-stage
 wall-clock the same way; ``trace`` wraps a block in a jax.profiler trace for
-TPU timeline inspection.
+device timeline inspection.
 """
 
 from __future__ import annotations

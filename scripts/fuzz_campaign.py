@@ -12,8 +12,8 @@ Checks per case:
   * bit-exact mode labels / multi BEV / single BEV == oracle (hard failure);
   * tolerance mode vs bit-exact mode (reported: label flips are allowed by
     the BASELINE.json:5 acceptance window but we record every occurrence and
-    the resulting BEV pixel delta so the "pixel-identical so far" claim in
-    docs/PERFORMANCE.md stays measured, not assumed).
+    the resulting BEV pixel delta so the "pixel-identical so far" claim
+    stays measured, not assumed).
 
 Usage:  python -m scripts.fuzz_campaign --start 20000 --cases 500 [--sensors]
 Exit status: 1 on any bit-exact divergence, else 0.
@@ -526,7 +526,7 @@ def run_normals_sweep(start: int, n_cases: int) -> int:
     exact-perpendicular viewpoint ties are sign-ambiguous in PCL too).
 
     Neighbor-selection knife edges (ledger D3: a point whose exact d² sits
-    within the MXU-form score's rounding window of the decision boundary —
+    within the matmul-form score's rounding window of the decision boundary —
     the radius r², or the k-th-neighbor distance in setKSearch mode) are
     EXPLAINED, not just tolerated: the divergence is accepted only when the
     plain oracle recomputed on the alternative neighbor set reproduces the
@@ -569,7 +569,7 @@ def run_normals_sweep(start: int, n_cases: int) -> int:
             amp = r_sq * len(sel) * 2.0**-23 / gap
             return max(5e-3, min(0.1, 4.0 * amp))
 
-        # decision-boundary rounding window of the op's MXU-form scores
+        # decision-boundary rounding window of the op's matmul-form scores
         # (|t|² − 2q·t + q² over bbox-centered coords): ~|p−c|²·2⁻²³
         # absolute, with headroom for the sum order.  Scaled PER (query,
         # candidate) pair — max(|p_i−c|², |p_j−c|²), not the scene-wide

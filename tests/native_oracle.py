@@ -1,27 +1,24 @@
 """ctypes loader for the native differential oracle (native/ref_oracle.cpp).
 
-Builds the shared library on demand (same pattern as
-pctpu/runtime/native_io.py) and exposes numpy-in/numpy-out wrappers for the
-three transcribed chains.  Test-only — this is evidence infrastructure, not
-product code: the library is a THIRD independent implementation of the
-reference semantics (C++ float arithmetic natively, where tests/ref_impl.py
-must emulate it with numpy casts), diffed byte-for-byte against both the
-Python oracle and the pctpu ops in tests/test_native_oracle.py and the
-fuzz-campaign --native leg.
+Builds the shared library on first use (pctpu/runtime/native_build.py) and
+exposes numpy-in/numpy-out wrappers for the three transcribed chains.
+Test-only — this is evidence infrastructure, not product code: the library
+is a THIRD independent implementation of the reference semantics (C++ float
+arithmetic natively, where tests/ref_impl.py must emulate it with numpy
+casts), diffed byte-for-byte against both the Python oracle and the pctpu
+ops in tests/test_native_oracle.py, the fuzz-campaign --native leg and
+chip_smoke.py.
 """
 
 from __future__ import annotations
 
 import ctypes
-import os
 import subprocess
 import threading
 
 import numpy as np
 
-_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(_REPO, "native", "ref_oracle.cpp")
-_LIB = os.path.join(_REPO, "native", "libpctpu_ref_oracle.so")
+from pctpu.runtime.native_build import build, native_source
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -35,21 +32,10 @@ def _load() -> ctypes.CDLL | None:
             return _lib
         _tried = True
         try:
-            if not os.path.exists(_LIB) or (
-                os.path.exists(_SRC)
-                and os.path.getmtime(_LIB) < os.path.getmtime(_SRC)
-            ):
-                tmp = f"{_LIB}.build.{os.getpid()}"
-                subprocess.run(
-                    [
-                        "g++", "-O2", "-std=c++14", "-ffp-contract=off",
-                        "-shared", "-fPIC", "-o", tmp, _SRC,
-                    ],
-                    check=True,
-                    capture_output=True,
-                )
-                os.replace(tmp, _LIB)
-            lib = ctypes.CDLL(_LIB)
+            lib = ctypes.CDLL(build(
+                native_source("ref_oracle.cpp"),
+                ["-O2", "-std=c++14", "-ffp-contract=off"],
+            ))
             lib.pctpu_ref_preprocess.argtypes = [
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,

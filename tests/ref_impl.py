@@ -1,5 +1,5 @@
 """Independent plain-loop transcriptions of the reference semantics, used as
-differential-test oracles for the vectorized TPU ops.
+differential-test oracles for the vectorized device ops.
 
 These follow the C++ control flow literally (sequential loops, in-place
 writes) so that any vectorization mistake in pctpu.ops shows up as a diff.
@@ -319,7 +319,7 @@ def normals2d_knife_edge_sets(
 ):
     """Yield neighbor index sets reachable by reclassifying points whose
     exact d² lies within ``win`` of the decision boundary (ledger D3).
-    ``win`` may be a scalar or a per-candidate (N,) array (the MXU score's
+    ``win`` may be a scalar or a per-candidate (N,) array (the matmul score's
     rounding error scales with max(|query−c|², |candidate−c|²), so callers
     can scale the window per pair instead of scene-wide).
 

@@ -2,7 +2,7 @@
 
 The north-star acceptance window is <1 px BEV / <0.5 deg yaw vs the reference
 binaries (BASELINE.json:5) — not bit-exactness.  Tolerance mode swaps the
-ground-grid scatter-add for an MXU segment-sum (pctpu/ops/ground.py::
+ground-grid in-order fold for a matmul segment-sum (pctpu/ops/ground.py::
 _grid_sums_tolerance) whose sector averages differ from the sequential C++
 accumulation by ~1e-5 relative.  These tests demonstrate that across the
 differential fuzz regimes the divergence never escapes the window: labels and
@@ -49,7 +49,7 @@ def test_tolerance_pixel_identical_across_fuzz_regimes(regime):
 
 
 def test_tolerance_sector_averages_within_window():
-    """The MXU segment-sum reproduces the scatter-add sector *averages* to
+    """The matmul segment-sum reproduces the in-order sector *averages* to
     ~1e-5 relative — the documented tolerance-mode divergence bound."""
     cfg = GroundConfig()
     rng = np.random.default_rng(0)

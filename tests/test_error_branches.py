@@ -337,9 +337,9 @@ def test_pallas_nn_kernel_arg_validation():
 
     q = np.zeros((8, 3), np.float32)
     t = np.zeros((8, 3), np.float32)
-    with pytest.raises(ValueError, match="kernel must be"):
+    with pytest.raises(ValueError, match="powers of two"):
         pallas_nn_1_pruned(q, np.ones(8, bool), t, np.ones(8, bool),
-                           interpret=True, kernel="bogus")
+                           tq=96, interpret=True)
 
 
 def test_logging_helpers_print(capsys):

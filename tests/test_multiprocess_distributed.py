@@ -23,7 +23,6 @@ from tests.test_write_overlap import PARAMS, _make_selected_tree
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKER = os.path.join(os.path.dirname(os.path.abspath(__file__)), "mp_worker.py")
-CACHE = os.path.join(os.path.dirname(os.path.abspath(__file__)), ".jax_cache")
 
 
 def _free_port() -> int:
@@ -67,11 +66,12 @@ def test_two_process_distributed_matches_single(tmp_path):
 
     coord = f"127.0.0.1:{_free_port()}"
     env = {k: v for k, v in os.environ.items()
-           if not k.startswith(("JAX_", "XLA_"))}
+           if not k.startswith(("JAX_", "XLA_"))
+           or k == "JAX_COMPILATION_CACHE_DIR"}
     env["JAX_PLATFORMS"] = "cpu"
     procs = [
         subprocess.Popen(
-            [sys.executable, WORKER, REPO, multi_root, coord, str(pid), CACHE],
+            [sys.executable, WORKER, REPO, multi_root, coord, str(pid)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
             env=env,
         )

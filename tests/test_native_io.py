@@ -37,42 +37,53 @@ def test_native_lib_builds():
 
 
 def test_native_lib_compile_and_rebuild(tmp_path, monkeypatch):
-    """The on-demand g++ build branch (native_io.py::_load): an absent .so
-    is compiled from source via atomic temp+rename, a stale .so (older than
-    the source) is rebuilt, and a broken source degrades to None so every
-    caller falls back to the pure-Python writers."""
+    """The on-demand g++ build branch (native_io.py::_load): an absent
+    library is compiled from source via atomic temp+rename under a name
+    keyed on the source's content, a library for other source content (even
+    a newer file) is never loaded, an edited source gets a fresh build, and
+    a broken source degrades to None so every caller falls back to the
+    pure-Python writers."""
     import glob
     import os
+    import shutil
 
+    import pctpu.runtime.native_build as nb
     import pctpu.runtime.native_io as nio
 
-    lib_path = str(tmp_path / "libpctpu_io.so")
-    monkeypatch.setattr(nio, "_LIB", lib_path)
-    monkeypatch.setattr(nio, "_lib", None)
-    monkeypatch.setattr(nio, "_tried", False)
-    assert nio.native_available()  # compiled from source on demand
-    assert os.path.exists(lib_path)
+    monkeypatch.setattr(nb, "BUILD_DIR", str(tmp_path / "build"))
+
+    def reload():
+        monkeypatch.setattr(nio, "_lib", None)
+        monkeypatch.setattr(nio, "_tried", False)
+        return nio.native_available()
+
+    src = str(tmp_path / "pctpu_io.cpp")
+    shutil.copy(nb.native_source("pctpu_io.cpp"), src)
+    monkeypatch.setattr(nio, "native_source", lambda name: src)
+    assert reload()  # compiled from source on demand
+    (lib_path,) = glob.glob(str(tmp_path / "build" / "pctpu_io-*.so"))
     assert not glob.glob(lib_path + ".build.*")  # temp renamed away
     img = np.arange(64, dtype=np.uint8).reshape(8, 8)
     nio.write_png(str(tmp_path / "fresh.png"), img)
     assert np.array_equal(read_gray_png(str(tmp_path / "fresh.png")), img)
 
-    # stale .so (older than the source) is rebuilt
-    src_mtime = os.path.getmtime(nio._SRC)
-    os.utime(lib_path, (src_mtime - 10, src_mtime - 10))
-    monkeypatch.setattr(nio, "_lib", None)
-    monkeypatch.setattr(nio, "_tried", False)
-    assert nio.native_available()
-    assert os.path.getmtime(lib_path) >= src_mtime
+    # a newer library under another key (another checkout's build) is
+    # ignored; editing the source builds a second library beside the first
+    stray = str(tmp_path / "build" / "pctpu_io-0000000000000000.so")
+    with open(stray, "w") as f:
+        f.write("not a library")
+    with open(src, "a") as f:
+        f.write("\n// edited\n")
+    assert reload()
+    libs = set(glob.glob(str(tmp_path / "build" / "pctpu_io-*.so")))
+    assert len(libs - {stray, lib_path}) == 1
+    assert os.path.getsize(stray) == len("not a library")
 
     # broken source: build fails quietly, native_available() -> False
     bad_src = tmp_path / "bad.cpp"
     bad_src.write_text("this is not C++")
-    monkeypatch.setattr(nio, "_SRC", str(bad_src))
-    monkeypatch.setattr(nio, "_LIB", str(tmp_path / "bad.so"))
-    monkeypatch.setattr(nio, "_lib", None)
-    monkeypatch.setattr(nio, "_tried", False)
-    assert not nio.native_available()
+    monkeypatch.setattr(nio, "native_source", lambda name: str(bad_src))
+    assert not reload()
 
 
 def test_native_lzf_matches_python():

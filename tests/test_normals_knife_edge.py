@@ -1,7 +1,6 @@
 """Pinned neighbor-selection knife edges (README ledger D3).
 
-First hit by the round-4 fresh-seed campaign (range 1300000+, on the TPU
-backend): the op's MXU-form scores (|t|² − 2q·t + q² over bbox-centered
+First hit by the round-4 fresh-seed campaign (range 1300000+): the op's matmul-form scores (|t|² − 2q·t + q² over bbox-centered
 coords, ~|p−c|²·2⁻²³ absolute rounding) can classify a point differently
 from the oracle's direct d² when the exact d² sits within that window of
 the decision boundary — the radius r² (strict-< membership,
@@ -12,7 +11,7 @@ rather than tolerated: the plain oracle recomputed on the alternative
 neighbor set must reproduce whichever answer the op gave.
 
 Both assertions here are backend-independent: which side of the knife edge
-the op lands on may differ between CPU XLA and the TPU MXU, but the answer
+the op lands on may differ between CPU XLA and a GPU, but the answer
 must always belong to the knife-edge family.
 """
 

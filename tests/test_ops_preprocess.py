@@ -1,4 +1,4 @@
-"""Differential tests: vectorized TPU ops vs plain-loop oracle (ref_impl)."""
+"""Differential tests: vectorized device ops vs plain-loop oracle (ref_impl)."""
 
 import numpy as np
 import pytest

@@ -1,56 +1,73 @@
-"""Pallas fused-NN kernel: interpret-mode correctness (real-TPU runs are
-exercised by bench.py / the driver)."""
+"""The fine-stage NN kernel (ops/pallas_knn.py, Pallas on the Triton route)
+in interpret mode against the plain reference ``ops.knn.nn_1`` and brute
+force.  The compiled kernel runs on a GPU only: ``chip_smoke.py`` checks it
+there at 49k x 49k."""
 
+import functools
+
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pctpu.ops.pallas_knn import PALLAS_AVAILABLE, pallas_nn_1
+from pctpu.ops.knn import nn_1
+from pctpu.ops.pallas_knn import (
+    check_against_nn_1,
+    pallas_nn_1_pruned,
+    spatial_sort,
+)
 
-pytestmark = pytest.mark.skipif(not PALLAS_AVAILABLE, reason="pallas unavailable")
+nn_interp = functools.partial(pallas_nn_1_pruned, interpret=True)
 
 
-@pytest.mark.slow
-def test_pallas_nn_matches_bruteforce_interpret():
+@pytest.fixture
+def icp_kernel_interpret(monkeypatch):
+    """ICP's nn_impl="pruned" path with the kernel in the interpreter."""
+    import pctpu.ops.icp as icp_mod
+
+    monkeypatch.setattr(icp_mod, "pallas_nn_1_pruned", nn_interp)
+
+
+def _sorted_clouds(seed, nq, nt, span=50.0, drop=0.1):
+    rng = np.random.default_rng(seed)
+    q = rng.uniform(-span, span, (nq, 3)).astype(np.float32)
+    t = rng.uniform(-span, span, (nt, 3)).astype(np.float32)
+    qm = rng.random(nq) >= drop
+    tm = rng.random(nt) >= drop
+    qs, qsm, _ = spatial_sort(jnp.asarray(q), jnp.asarray(qm))
+    ts, tsm, _ = spatial_sort(jnp.asarray(t), jnp.asarray(tm))
+    return qs, qsm, ts, tsm
+
+
+def test_pruned_nn_matches_bruteforce():
+    """Masked targets (a whole tail tile among them) are never chosen."""
     rng = np.random.default_rng(0)
     q = rng.uniform(-10, 10, (200, 3)).astype(np.float32)
     t = rng.uniform(-10, 10, (600, 3)).astype(np.float32)
-    qm = np.ones(200, bool)
     tm = np.ones(600, bool)
     tm[550:] = False
-    idx, d2 = pallas_nn_1(q, qm, t, tm, tq=128, tt=256, interpret=True)
+    idx, d2 = nn_interp(q, np.ones(200, bool), t, tm, tq=64, tt=128)
     full = ((q[:, None] - t[None]) ** 2).sum(-1)
     full[:, ~tm] = np.inf
     np.testing.assert_array_equal(np.asarray(idx), full.argmin(1))
     np.testing.assert_allclose(np.asarray(d2), full.min(1), rtol=1e-6, atol=1e-7)
 
 
-@pytest.mark.slow
-def test_pallas_nn_masked_queries_interpret():
+def test_pruned_nn_masked_queries():
     rng = np.random.default_rng(1)
     q = rng.uniform(-5, 5, (130, 3)).astype(np.float32)
     t = rng.uniform(-5, 5, (300, 3)).astype(np.float32)
     qm = np.ones(130, bool)
     qm[100:] = False
-    idx, d2 = pallas_nn_1(q, qm, t, np.ones(300, bool), tq=128, tt=256, interpret=True)
+    idx, d2 = nn_interp(q, qm, t, np.ones(300, bool))
     assert np.all(np.isinf(np.asarray(d2)[100:]))
+    assert np.all(np.isfinite(np.asarray(d2)[:100]))
 
 
 def test_pruned_nn_exact_no_threshold():
-    import jax.numpy as jnp
-
-    from pctpu.ops.knn import nn_1
-    from pctpu.ops.pallas_knn import pallas_nn_1_pruned, spatial_sort
-
-    rng = np.random.default_rng(0)
-    q = rng.uniform(-50, 50, (700, 3)).astype(np.float32)
-    t = rng.uniform(-50, 50, (900, 3)).astype(np.float32)
-    qm = rng.random(700) > 0.1
-    tm = rng.random(900) > 0.1
-    qs, qsm, _ = spatial_sort(jnp.asarray(q), jnp.asarray(qm))
-    ts, tsm, _ = spatial_sort(jnp.asarray(t), jnp.asarray(tm))
+    qs, qsm, ts, tsm = _sorted_clouds(0, 700, 900)
     i_ref, d_ref = nn_1(qs, qsm, ts, tsm)
-    i_p, d_p = pallas_nn_1_pruned(qs, qsm, ts, tsm, max_distance=None,
-                                  tq=128, tt=256, interpret=True)
+    i_p, d_p = nn_interp(qs, qsm, ts, tsm, max_distance=None, tq=128, tt=256)
     valid = np.asarray(qsm)
     np.testing.assert_array_equal(np.asarray(i_ref)[valid], np.asarray(i_p)[valid])
     np.testing.assert_allclose(
@@ -60,21 +77,9 @@ def test_pruned_nn_exact_no_threshold():
 
 @pytest.mark.parametrize("md", [2.0, 8.0])
 def test_pruned_nn_threshold_semantics(md):
-    import jax.numpy as jnp
-
-    from pctpu.ops.knn import nn_1
-    from pctpu.ops.pallas_knn import pallas_nn_1_pruned, spatial_sort
-
-    rng = np.random.default_rng(1)
-    q = rng.uniform(-50, 50, (600, 3)).astype(np.float32)
-    t = rng.uniform(-50, 50, (800, 3)).astype(np.float32)
-    m_q = np.ones(600, bool)
-    m_t = np.ones(800, bool)
-    qs, qsm, _ = spatial_sort(jnp.asarray(q), jnp.asarray(m_q))
-    ts, tsm, _ = spatial_sort(jnp.asarray(t), jnp.asarray(m_t))
+    qs, qsm, ts, tsm = _sorted_clouds(1, 600, 800, drop=0.0)
     i_ref, d_ref = nn_1(qs, qsm, ts, tsm)
-    i_p, d_p = pallas_nn_1_pruned(qs, qsm, ts, tsm, max_distance=md,
-                                  tq=128, tt=256, interpret=True)
+    i_p, d_p = nn_interp(qs, qsm, ts, tsm, max_distance=md, tq=128, tt=256)
     d_ref, d_p = np.asarray(d_ref), np.asarray(d_p)
     within = d_ref <= md * md
     # within the threshold: exact NN; beyond: either +inf or a (rejected)
@@ -85,7 +90,50 @@ def test_pruned_nn_threshold_semantics(md):
     assert np.all(~np.isfinite(d_p[beyond]) | (d_p[beyond] > md * md))
 
 
-def test_icp_pruned_nn_matches_xla():
+@pytest.mark.parametrize("tiles", [(32, 32), (64, 128), (128, 64)])
+def test_pruned_nn_tile_sizes_agree(tiles):
+    """Every tile shape the GPU sweep tries gives the reference's answer,
+    with the last query and target tiles partly padding."""
+    tq, tt = tiles
+    qs, qsm, ts, tsm = _sorted_clouds(21, 333, 517)
+    ref = nn_1(qs, qsm, ts, tsm)
+    for md in (None, 3.0):
+        got = nn_interp(qs, qsm, ts, tsm, max_distance=md, tq=tq, tt=tt)
+        assert check_against_nn_1(ts, ref, got, max_distance=md) == 0
+
+
+def test_pruned_nn_vmapped_matches_single():
+    """vmap over a pair batch (how the registration stages call it) gives
+    each pair's single-call result."""
+    pairs = [_sorted_clouds(s, 300, 400) for s in (3, 4, 5)]
+    stacked = [jnp.stack(x) for x in zip(*pairs)]
+    for md in (None, 2.0):
+        b_idx, b_d2 = jax.vmap(
+            functools.partial(nn_interp, max_distance=md))(*stacked)
+        for k, p in enumerate(pairs):
+            idx, d2 = nn_interp(*p, max_distance=md)
+            np.testing.assert_array_equal(np.asarray(b_idx[k]), np.asarray(idx))
+            np.testing.assert_array_equal(np.asarray(b_d2[k]), np.asarray(d2))
+
+
+def test_check_against_nn_1_rejects_wrong_winners():
+    """The on-GPU comparison helper passes the reference against itself and
+    fails a result with a far winner or a wrong distance."""
+    qs, qsm, ts, tsm = _sorted_clouds(6, 300, 400, drop=0.0)
+    ref = tuple(np.asarray(a) for a in nn_1(qs, qsm, ts, tsm))
+    assert check_against_nn_1(ts, ref, ref) == 0
+    idx, d2 = ref[0].copy(), ref[1].copy()
+    idx[:5] = (idx[:5] + 200) % 400  # far-away winners
+    d2[:5] += 100.0
+    with pytest.raises(AssertionError, match="window"):
+        check_against_nn_1(ts, ref, (idx, d2))
+    d2 = ref[1].copy()
+    d2[0] = np.nextafter(d2[0], np.float32(np.inf))
+    with pytest.raises(AssertionError, match="distances differ"):
+        check_against_nn_1(ts, ref, (ref[0], d2))
+
+
+def test_icp_pruned_nn_matches_xla(icp_kernel_interpret):
     """Full ICP through the pruned-NN path == the XLA path (same scene as the
     oracle tests; spatial sorting only permutes reduction order)."""
     from pctpu.config import IcpConfig
@@ -99,7 +147,7 @@ def test_icp_pruned_nn_matches_xla():
     guess = np.eye(4, dtype=np.float32)
     cfg = IcpConfig(max_correspondence_distance=4.0, max_iterations=8)
     a = icp_point_to_point(src, sm, tgt, tm, guess, cfg, nn_impl="xla")
-    b = icp_point_to_point(src, sm, tgt, tm, guess, cfg, nn_impl="pruned_interpret")
+    b = icp_point_to_point(src, sm, tgt, tm, guess, cfg, nn_impl="pruned")
     assert bool(a.converged) == bool(b.converged)
     np.testing.assert_allclose(np.asarray(a.transform), np.asarray(b.transform),
                                atol=1e-5)
@@ -110,10 +158,6 @@ def test_pruned_nn_tie_breaks_to_lowest_index():
     """Exactly equidistant targets in different t-tiles: the winner must be
     the lowest global index (ops.knn.nn_1 convention), independent of the
     kernel's diagonal-start visit order."""
-    import jax.numpy as jnp
-
-    from pctpu.ops.pallas_knn import pallas_nn_1_pruned
-
     # target layout chosen directly in sorted order (no spatial_sort: we
     # need controlled tile placement).  Tile size 256 -> targets 0 and 256
     # land in different tiles.
@@ -124,13 +168,13 @@ def test_pruned_nn_tie_breaks_to_lowest_index():
     tm = np.ones(512, bool)
     qm = np.zeros(128, bool)
     qm[0] = True
-    idx, d2 = pallas_nn_1_pruned(q, qm, jnp.asarray(t), tm, max_distance=None,
-                                 tq=128, tt=256, interpret=True)
+    idx, d2 = nn_interp(q, qm, jnp.asarray(t), tm, max_distance=None,
+                        tq=128, tt=256)
     assert int(np.asarray(idx)[0]) == 0
     np.testing.assert_allclose(float(np.asarray(d2)[0]), 1.0, rtol=1e-6)
 
 
-def test_icp_pruned_nan_normal_not_poisoning():
+def test_icp_pruned_nan_normal_not_poisoning(icp_kernel_interpret):
     """A NaN normal on an excluded target (normal_mask False) plus masked
     source padding must not NaN-poison the point-to-plane solve through the
     pruned path's idx=0 convention for unmatched queries."""
@@ -166,7 +210,7 @@ def test_icp_pruned_nan_normal_not_poisoning():
     a = icp_point_to_plane(src, sm, tgt, np.ones(n, bool), nrm, ok, guess,
                            cfg, nn_impl="xla")
     b = icp_point_to_plane(src, sm, tgt, np.ones(n, bool), nrm, ok, guess,
-                           cfg, nn_impl="pruned_interpret")
+                           cfg, nn_impl="pruned")
     for r in (a, b):
         assert np.isfinite(np.asarray(r.transform)).all()
         assert np.isfinite(float(r.fitness))
@@ -174,42 +218,29 @@ def test_icp_pruned_nan_normal_not_poisoning():
                                atol=1e-5)
 
 
-def test_loop_kernel_matches_2d_kernel_and_oracle():
-    """The 1-D-grid loop kernel (the COMPILED TPU path, ops/pallas_knn.py
-    ``_make_nn_pruned_loop_kernel``) diff-tested on CPU via interpret mode
-    against both the 2-D-grid kernel and the exact XLA oracle: no-threshold,
-    thresholded, and masked.  Before the ``kernel``
-    override, interpret mode always fell back to the 2-D kernel and the loop
-    kernel had no CPU coverage at all (round-2 VERDICT weak #4 class)."""
-    import jax.numpy as jnp
+@pytest.mark.gpu
+def test_pruned_nn_compiled_matches_nn_1(gpu):
+    """The compiled kernel against nn_1 on the card, at a fine-stage width."""
+    with jax.default_device(gpu):
+        qs, qsm, ts, tsm = _sorted_clouds(7, 8192, 8192, span=70.0, drop=0.0)
+        ref = jax.device_get(nn_1(qs, qsm, ts, tsm))
+        for md in (None, 1.0):
+            got = jax.device_get(pallas_nn_1_pruned(qs, qsm, ts, tsm,
+                                                    max_distance=md))
+            check_against_nn_1(ts, ref, got, max_distance=md)
 
-    from pctpu.ops.knn import nn_1
-    from pctpu.ops.pallas_knn import pallas_nn_1_pruned, spatial_sort
 
-    rng = np.random.default_rng(21)
-    n, m = 700, 2500
-    q = rng.uniform(-50, 50, (n, 3)).astype(np.float32)
-    t = rng.uniform(-50, 50, (m, 3)).astype(np.float32)
-    qm0 = rng.random(n) > 0.05
-    tm0 = rng.random(m) > 0.05
-    qs, qm, _ = spatial_sort(jnp.asarray(q), jnp.asarray(qm0))
-    ts, tm, _ = spatial_sort(jnp.asarray(t), jnp.asarray(tm0))
-    i_ref, d_ref = nn_1(qs, qm, ts, tm)
-    valid = np.asarray(qm)
-
-    # no threshold (the fitness pass)
-    i_l, d_l = pallas_nn_1_pruned(qs, qm, ts, tm, interpret=True, kernel="loop")
-    np.testing.assert_array_equal(np.asarray(i_l)[valid], np.asarray(i_ref)[valid])
-    np.testing.assert_array_equal(np.asarray(d_l)[valid], np.asarray(d_ref)[valid])
-
-    # thresholded (the correspondence pass), vs the 2-D kernel bit-for-bit
-    for md in (0.5, 2.0, 8.0):
-        i_l, d_l = pallas_nn_1_pruned(qs, qm, ts, tm, max_distance=md,
-                                      interpret=True, kernel="loop")
-        i_2, d_2 = pallas_nn_1_pruned(qs, qm, ts, tm, max_distance=md,
-                                      interpret=True, kernel="2d")
-        np.testing.assert_array_equal(np.asarray(i_l), np.asarray(i_2))
-        np.testing.assert_array_equal(np.asarray(d_l), np.asarray(d_2))
-        within = np.asarray(d_ref) <= md * md
-        np.testing.assert_array_equal(np.asarray(i_l)[within & valid],
-                                      np.asarray(i_ref)[within & valid])
+@pytest.mark.parametrize("md", [None, 1.0])
+def test_pruned_nn_lowers_for_cuda(md):
+    """The kernel, alone and vmapped over a pair batch, passes the Triton
+    lowering rules for a CUDA target (lowering needs no GPU; the card
+    compiles what this emits)."""
+    q = jax.ShapeDtypeStruct((4, 4096, 3), jnp.float32)
+    m = jax.ShapeDtypeStruct((4, 4096), jnp.bool_)
+    f = functools.partial(pallas_nn_1_pruned, max_distance=md)
+    for fn, args in ((jax.jit(f), (q.update(shape=q.shape[1:]),
+                                   m.update(shape=m.shape[1:]))),
+                     (jax.jit(jax.vmap(f)), (q, m))):
+        text = fn.trace(args[0], args[1], args[0], args[1]).lower(
+            lowering_platforms=("cuda",)).as_text()
+        assert "nn_1_pruned" in text

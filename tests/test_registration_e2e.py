@@ -184,22 +184,25 @@ def test_pair_batched_driver_matches_sequential(tmp_path):
 
 
 def test_default_pair_batch_is_backend_aware(monkeypatch):
-    """pair_batch=None resolves to 16 on TPU (the benched vmapped pipeline)
-    and 1 elsewhere, so the reference argv contract gets the fast path on
-    the hardware it helps (VERDICT r3 item 5)."""
+    """pair_batch=None resolves to 16 on a GPU (the benched vmapped
+    pipeline) and 1 on the CPU, so the reference argv contract gets the fast
+    path on the hardware it helps."""
     import pctpu.pipelines.registration as regmod
+    from pctpu.runtime import platform
 
-    monkeypatch.setattr(regmod.jax, "default_backend", lambda: "tpu")
-    assert regmod.default_pair_batch() == 16
-    monkeypatch.setattr(regmod.jax, "default_backend", lambda: "cpu")
-    assert regmod.default_pair_batch() == 1
+    for name, want in (("gpu", 16), ("cpu", 1)):
+        monkeypatch.setattr(
+            regmod, "platform_choice",
+            lambda name=name: platform.platform_choice(name),
+        )
+        assert regmod.default_pair_batch() == want
 
 
 @pytest.mark.slow
 def test_auto_pair_batch_reports_match_sequential(tmp_path, monkeypatch):
-    """pair_batch=None routed to the batched pipeline (as on TPU) writes a
+    """pair_batch=None routed to the batched pipeline (as on a GPU) writes a
     byte-identical report to the explicit sequential run — the padding
-    equivalence that makes the TPU-smart default safe."""
+    equivalence that makes the platform default safe."""
     import pctpu.pipelines.registration as regmod
     from pctpu.io.pcd import write_pcd
 
@@ -232,7 +235,7 @@ def test_auto_pair_batch_reports_match_sequential(tmp_path, monkeypatch):
         str(match_file), str(cloud_dir), report_path=str(tmp_path / "r1.txt"),
         flat_cap=4096, pair_batch=1,
     )
-    # route the None default to the batched pipeline, as the TPU default does
+    # route the None default to the batched pipeline, as the GPU default does
     monkeypatch.setattr(regmod, "default_pair_batch", lambda: 2)
     auto = run_batch_top_part_registration(
         str(match_file), str(cloud_dir), report_path=str(tmp_path / "r2.txt"),

@@ -191,7 +191,7 @@ def assert_two_stage_matches(best, fine, ref, cfg_failure_fitness=1.5):
     d_win = np.abs(t_best - ref["best"]["transform"]).max()
     d_lose = np.abs(t_best - ref["coarse"][1 - ref["best_i"]]["transform"]).max()
     # On spurious-correspondence scenes (winner coarse fitness in the
-    # hundreds) the coarse trajectory is CHAOTIC: the f32/MXU stack's
+    # hundreds) the coarse trajectory is CHAOTIC: the f32 matmul stack's
     # rounding acts as an input perturbation far larger than the oracle's
     # 1e-6 stability probe, and the two stacks can converge into different
     # basins entirely (D19; measured at seed 1200029 — production at a

@@ -100,9 +100,6 @@ def test_measure_pipeline_span_plumbing(monkeypatch):
     # more than loader/scheduling noise
     assert wall <= out["pipeline_serial_sum_ms_per_cloud"] * 1.25
     assert 0.0 <= out["pipeline_write_overlap_hidden_pct"] <= 100.0
-    assert out["tunnel_transfer_ms_per_batch"] > 0
-    assert out["pipeline_full_span_clouds_per_sec_pcie_estimate"] >= \
-        out["pipeline_full_span_clouds_per_sec"]
 
 
 def test_utilization_block_plumbing(monkeypatch):
